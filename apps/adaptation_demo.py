@@ -29,13 +29,12 @@ def main():
     ap.add_argument("--payload-len", type=int, default=32)
     ap.add_argument("--kindicator", default="off", choices=["off", "on"])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--cpu", action="store_true", help="force the CPU backend")
+    ap.add_argument("--cpu", action="store_true", help="run on the CPU (default: require a GPU)")
     args = ap.parse_args()
 
-    if args.cpu:
-        import jax
+    from liquiddsp_tpu.utils.init import init_device
 
-        jax.config.update("jax_platforms", "cpu")
+    init_device(cpu=args.cpu)
 
     from liquiddsp_tpu.core.config import FrameConfig
     from liquiddsp_tpu.engine.cognitive_engine import CognitiveEngineBlock

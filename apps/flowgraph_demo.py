@@ -23,13 +23,12 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--graph", default="liquiddsp_tpu/grc/graphs/adaptation_loop.yaml")
     ap.add_argument("--packets", type=int, default=100)
-    ap.add_argument("--cpu", action="store_true", help="force the CPU backend")
+    ap.add_argument("--cpu", action="store_true", help="run on the CPU (default: require a GPU)")
     args = ap.parse_args()
 
-    if args.cpu:
-        import jax
+    from liquiddsp_tpu.utils.init import init_device
 
-        jax.config.update("jax_platforms", "cpu")
+    init_device(cpu=args.cpu)
 
     from liquiddsp_tpu.grc.loader import Flowgraph
 

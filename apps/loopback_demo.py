@@ -27,7 +27,7 @@ def main():
     ap.add_argument("--packets", type=int, default=10)
     ap.add_argument("--payload-len", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--cpu", action="store_true", help="force the CPU backend")
+    ap.add_argument("--cpu", action="store_true", help="run on the CPU (default: require a GPU)")
     ap.add_argument(
         "--native-io",
         action="store_true",
@@ -37,10 +37,9 @@ def main():
     )
     args = ap.parse_args()
 
-    if args.cpu:
-        import jax
+    from liquiddsp_tpu.utils.init import init_device
 
-        jax.config.update("jax_platforms", "cpu")
+    init_device(cpu=args.cpu)
 
     from liquiddsp_tpu.core.config import FrameConfig
     from liquiddsp_tpu.phy import framegen

@@ -24,19 +24,22 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from liquiddsp_tpu.runtime.supervisor import Supervisor, WorkerSpec  # noqa: E402
 
+# Workers run on the CPU on purpose: several share one machine, and each
+# JAX process on a GPU would need a card of its own.
 WORKER = r"""
 import json, os, sys
-import jax
 
-jax.config.update("jax_platforms", "cpu")
 sys.path.insert(0, sys.argv[5])
+from liquiddsp_tpu.utils.init import init_device
+
+init_device(cpu=True)
+import jax
 import numpy as np
 import jax.numpy as jnp
 from liquiddsp_tpu.core.config import FrameConfig
 from liquiddsp_tpu.phy import framegen
 from liquiddsp_tpu.runtime.stream import StreamingRx
 from liquiddsp_tpu.runtime.supervisor import Heartbeat, load_stream_state, save_stream_state
-from liquiddsp_tpu.utils.device import put_c64
 
 work_dir, widx, n_chunks, die_after = (
     sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4])
@@ -66,7 +69,7 @@ resumed = extra is not None
 
 while (i := rx._samples_consumed // chunk) < n_chunks:
     hb.beat()
-    res = rx.step(put_c64(stream[:, i * chunk : (i + 1) * chunk]))
+    res = rx.step(jnp.asarray(stream[:, i * chunk : (i + 1) * chunk]))
     m = np.asarray(res.mask)[0]
     for k in np.nonzero(m)[0]:
         if bool(np.asarray(res.payload_valid)[0, k]):

@@ -1,9 +1,8 @@
 #!/usr/bin/env python
-"""Genie-aided FER loss attribution ladder (VERDICT r4 item 1).
+"""Genie-aided FER loss attribution ladder.
 
 The production RX shows an SNR-dependent implementation loss vs the exact
-uncoded AWGN anchors (bench/FER_SWEEP.json: e.g. BPSK@5 dB FER 0.24 vs
-theory 0.096 ~ 0.7 dB). This bench decomposes that loss per estimation
+uncoded AWGN anchors (bench/fer_sweep.py). This bench decomposes that loss per estimation
 stage by replacing each stage with its genie (true channel parameters),
 cumulatively:
 
@@ -25,7 +24,7 @@ reference estimate-and-correct chain:
 
 Usage:
     python bench/fer_ladder.py --cpu --trials 256     # quick CPU run
-    python bench/fer_ladder.py --trials 2048          # TPU artifact run
+    python bench/fer_ladder.py --trials 2048          # one GPU
 """
 
 import argparse
@@ -177,9 +176,10 @@ def main():
     ap.add_argument("--stages", default="", help="comma-separated stage subset")
     args = ap.parse_args()
 
-    from liquiddsp_tpu.utils.tpu_guard import guarded_backend_init
+    from liquiddsp_tpu.utils.init import init_device
 
-    jax = guarded_backend_init(cpu=args.cpu, canary=True)
+    device = init_device(cpu=args.cpu)
+    import jax
     import jax.numpy as jnp
 
     from liquiddsp_tpu.core.config import FrameConfig
@@ -223,7 +223,7 @@ def main():
     out = {
         "trials_per_point": args.trials,
         "payload_len": args.payload_len,
-        "device": str(jax.devices()[0]),
+        "device": device,
         "elapsed_s": time.time() - t0,
         "stages": STAGES,
         "records": records,

@@ -16,7 +16,7 @@ contract (SURVEY.md section 2.2).
 
 Usage:
     python bench/fer_sweep.py --cpu --trials 64        # quick CPU run
-    python bench/fer_sweep.py --trials 512             # TPU, full sweep
+    python bench/fer_sweep.py --trials 512             # one GPU, full sweep
     python bench/fer_sweep.py --out bench/FER_SWEEP.json
 
 Writes a JSON artifact (default bench/FER_SWEEP.json) with one record per
@@ -35,7 +35,7 @@ import numpy as np
 
 
 # (modulation, inner, outer, label, impairment) — spans the modem family and
-# the FEC families (conv + punctured, Golay, RS, Hamming) per VERDICT r1
+# the FEC families (conv + punctured, Golay, RS, Hamming) per the review of round 1
 # item 3; round 3 adds a long-frame row (>=2200 frame symbols, the SFO
 # tracker auto-engages + 40 ppm real clock offset via the arbitrary
 # resampler) and a static-multipath row (per-trial random 1-symbol echo,
@@ -461,9 +461,10 @@ def main():
     ap.add_argument("--configs", default="", help="comma-separated labels subset")
     args = ap.parse_args()
 
-    from liquiddsp_tpu.utils.tpu_guard import guarded_backend_init
+    from liquiddsp_tpu.utils.init import init_device
 
-    jax = guarded_backend_init(cpu=args.cpu, canary=True)
+    device = init_device(cpu=args.cpu)
+    import jax
     import jax.numpy as jnp
 
     from liquiddsp_tpu.core.config import FrameConfig

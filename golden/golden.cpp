@@ -1,7 +1,7 @@
 // golden — scalar C++ reference implementations (the bit-exactness oracle).
 //
 // Role: what liquid-dsp is to the reference wrapper (SURVEY.md section 2.2),
-// this library is to the TPU framework: an independent, scalar, native
+// this library is to the JAX framework: an independent, scalar, native
 // implementation of every codec/DSP primitive, against which the batched
 // JAX/Pallas ops are tested bit-exactly (SURVEY.md section 7.1 "golden/").
 //

@@ -1,12 +1,13 @@
-"""liquiddsp_tpu — a TPU-native adaptive flexframe PHY framework.
+"""liquiddsp_tpu — a batched, accelerator-resident adaptive flexframe PHY.
 
 A from-scratch JAX/XLA/Pallas re-design of the capability surface of
 gr-liquiddsp (a GNU Radio OOT module wrapping liquid-dsp; see SURVEY.md):
 
 - ``ops``     — batched DSP/coding primitives (msequence, CRC, modems, FEC,
                 RRC filters, AGC, NCO) as pure JAX functions.
-- ``kernels`` — Pallas TPU kernels for the hot inner loops (correlator,
-                matched filter) with XLA fallbacks.
+- ``kernels`` — Pallas kernels (Triton route) for the hot inner loops
+                on a GPU (preamble correlator, Viterbi), each with a
+                plain-JAX path that runs everywhere else.
 - ``phy``     — the flexframe PHY: framegen (TX), framesync (RX),
                 frame detector (batched, block-based — not per-sample).
 - ``runtime`` — streaming orchestrator, message bus, block-level API mirroring

@@ -1,4 +1,4 @@
-"""Pallas TPU kernel: fused multi-template preamble correlator.
+"""Fused multi-template preamble correlator (detect stage).
 
 The hot loop of frame detection (SURVEY.md section 3.4: per-sample
 ``qdetector_cccf_execute`` in the reference; here the whole block at once).
@@ -8,21 +8,26 @@ For every lag t it computes
     E[t]   = sum_n |x[t+n]|^2
     rho2[t] = max_f |c_f[t]|^2 / (E_s * E[t])
 
-and emits only the reduced per-lag quantities (rho2, argmax bin, peak
-correlation) — never materializing the [F, T] correlation surface in HBM,
-which is what the XLA FFT path does (phy/detector.correlate).
+and returns only the reduced per-lag quantities (rho2, argmax bin, peak
+correlation, energy).
 
-MXU formulation (block-Toeplitz, same math as correlate_reduced_mm): the
-stream is cut into L-sample blocks; all L lags of a block come from
-[X_k | X_{k+1}] @ M with M the stacked lower/upper Toeplitz template
-matrices. The kernel consumes two pre-shifted [B, NB, L] views (so every
-BlockSpec window is aligned — Mosaic cannot slice at +1-block offsets),
-runs eight [NBT, L] x [L, F*L] real matmuls per grid step on the MXU, and
-fuses the energy Toeplitz matmul, the max/argmax over templates, and the
-normalization — only the reduced per-lag rows ever reach HBM.
+Block-Toeplitz formulation: the stream is cut into L-sample blocks; all L
+lags of block k come from [X_k | X_{k+1}] @ M with M the stacked
+lower/upper Toeplitz template matrices (``_toeplitz_mats``). Three
+implementations share that contract:
 
-The public entry ``correlate_reduced`` dispatches to the Pallas kernel on
-TPU and to an equivalent XLA fallback elsewhere (tests run both and compare).
+- ``correlate_reduced_triton``: a Pallas kernel through Triton. Each
+  program takes NBT lag-blocks of one batch row and LT lags of each,
+  loops over the F templates with a running max/argmax, and writes only
+  the reduced rows, so the [B, NB, F*L] surface never reaches device
+  memory. Operands are bf16 with f32 accumulation.
+- ``correlate_reduced_mm``: the same matmuls in plain XLA (the reference
+  for the kernel, and the plain path off the GPU).
+- ``correlate_reduced_xla``: the FFT overlap-save correlator
+  (phy/detector.correlate).
+
+``correlate_reduced`` picks the kernel on a GPU and ``mm`` elsewhere
+(kernels.choose).
 """
 
 from __future__ import annotations
@@ -33,9 +38,18 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-NBT = 128  # signal blocks (of L lags each) per grid step
+from liquiddsp_tpu.kernels import choose
+
+NBT = 64  # lag-blocks (of L lags each) per program
+LT = 64  # lags of each block per program
+NUM_WARPS = 4
+
+# bf16 operands round each product to ~8 significant bits; with f32
+# accumulation the reduced rho2/corr stay within ~2e-2 relative of the f32
+# path, far below the detector's operating SNR (tests/test_kernels.py)
+BF16_RTOL = 2e-2
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,161 +96,151 @@ def _template_key(templates: np.ndarray) -> tuple:
     return key
 
 
-def _fused_kernel(
-    x0r, x0i, x1r, x1i, m1, m2, m3, em,
-    rho_o, fb_o, cre_o, cim_o, en_o, *, f: int, l: int, inv_es: float,
-):
-    """One grid step: NBT lag-blocks (NBT*L lags) of one batch row.
+def _triton_kernel(xr_ref, xi_ref, mr_ref, mi_ref, nmi_ref, em_ref,
+                   rho_o, fb_o, cre_o, cim_o, en_o, *, f: int, inv_es: float):
+    """One program: lags [j*LT, (j+1)*LT) of lag-blocks [i*NBT, (i+1)*NBT)
+    of batch row b. Matrix refs are [2, F, L, L] (top/bottom Toeplitz half
+    x template); the two signal blocks of each lag-block are rows k and k+1
+    of the [B, NB+1, L] planes."""
+    b, i, j = pl.program_id(0), pl.program_id(1), pl.program_id(2)
+    rows0 = pl.ds(i * NBT, NBT)
+    rows1 = pl.ds(i * NBT + 1, NBT)
+    cols = pl.ds(j * LT, LT)
+    a0r, a1r = xr_ref[b, rows0, :], xr_ref[b, rows1, :]  # [NBT, L] bf16
+    a0i, a1i = xi_ref[b, rows0, :], xi_ref[b, rows1, :]
 
-    The two signal blocks are lane-concatenated into one [NBT, 2L] operand
-    and the complex correlation X @ M uses Gauss's 3-multiplication trick
-    (k1=(ar+ai)Mr, k2=ai(Mr+Mi), k3=ar(Mi-Mr); cr=k1-k2, ci=k1+k3), so a
-    grid step is 3 correlation matmuls + 1 energy matmul instead of the
-    naive 8 + 2. Matmul operands may be bf16 (default on TPU — the MXU's
-    native dtype); accumulation is always f32 via preferred_element_type.
-    """
-    ar = jnp.concatenate([x0r[0], x1r[0]], axis=-1)  # [NBT, 2L]
-    ai = jnp.concatenate([x0i[0], x1i[0]], axis=-1)
-    dt = m1.dtype
-    dot = lambda a, b: jnp.dot(a, b[:], preferred_element_type=jnp.float32)
-    k1 = dot((ar + ai).astype(dt), m1)  # m1 = Mr
-    k2 = dot(ai, m2)  # m2 = Mr + Mi
-    k3 = dot(ar, m3)  # m3 = Mi - Mr
-    cr = k1 - k2
-    ci = k1 + k3
-    # energy: squares in f32 (bf16 squares would double the rounding); the
-    # cast back to the matmul dtype before the 0/1-Toeplitz contraction is
-    # the accepted per-term bf16 rounding (pinned at rtol 2e-2 in tests) —
-    # the matmul itself accumulates in f32
-    arf = ar.astype(jnp.float32)
-    aif = ai.astype(jnp.float32)
-    en = dot((arf * arf + aif * aif).astype(dt), em)  # [NBT, L]
-    mag2 = cr * cr + ci * ci  # [NBT, F*L]
-    # max/argmax over templates via F static lane slices
-    mbest = mag2[:, :l]
-    fb = jnp.zeros_like(mbest)
-    cbr = cr[:, :l]
-    cbi = ci[:, :l]
-    for fi in range(1, f):
-        sl = mag2[:, fi * l : (fi + 1) * l]
-        upd = sl > mbest
-        mbest = jnp.where(upd, sl, mbest)
-        fb = jnp.where(upd, float(fi), fb)
-        cbr = jnp.where(upd, cr[:, fi * l : (fi + 1) * l], cbr)
-        cbi = jnp.where(upd, ci[:, fi * l : (fi + 1) * l], cbi)
-    rho_o[0] = mbest * inv_es / jnp.maximum(en, 1e-12)
-    fb_o[0] = fb
-    cre_o[0] = cbr
-    cim_o[0] = cbi
-    en_o[0] = en
+    def dot(a, m_ref, half, fi):
+        return jnp.dot(a, m_ref[half, fi, :, cols],
+                       preferred_element_type=jnp.float32)
+
+    def power(ar, ai):
+        # squares in f32; the bf16 cast before the 0/1 Toeplitz contraction
+        # is the stated per-term rounding (BF16_RTOL)
+        ar, ai = ar.astype(jnp.float32), ai.astype(jnp.float32)
+        return (ar * ar + ai * ai).astype(a0r.dtype)
+
+    en = dot(power(a0r, a0i), em_ref, 0, 0) + dot(power(a1r, a1i), em_ref, 1, 0)
+    best = fb = cbr = cbi = None
+    for fi in range(f):
+        # (xr + j xi) @ (Mr + j Mi) over both halves
+        cr = (dot(a0r, mr_ref, 0, fi) + dot(a1r, mr_ref, 1, fi)
+              + dot(a0i, nmi_ref, 0, fi) + dot(a1i, nmi_ref, 1, fi))
+        ci = (dot(a0r, mi_ref, 0, fi) + dot(a1r, mi_ref, 1, fi)
+              + dot(a0i, mr_ref, 0, fi) + dot(a1i, mr_ref, 1, fi))
+        mag2 = cr * cr + ci * ci
+        if fi == 0:
+            best, fb, cbr, cbi = mag2, jnp.zeros(mag2.shape, jnp.int32), cr, ci
+        else:
+            upd = mag2 > best  # strict: ties keep the lower bin, as argmax
+            best = jnp.where(upd, mag2, best)
+            fb = jnp.where(upd, fi, fb)
+            cbr = jnp.where(upd, cr, cbr)
+            cbi = jnp.where(upd, ci, cbi)
+    rho_o[...] = best * inv_es / jnp.maximum(en, 1e-12)
+    fb_o[...] = fb
+    cre_o[...] = cbr
+    cim_o[...] = cbi
+    en_o[...] = en
 
 
 @functools.partial(jax.jit, static_argnames=("es", "interpret"))
-def _run_fused(x0r, x0i, x1r, x1i, mats, es, *, interpret: bool):
-    b, nb, l = x0r.shape
-    m1, m2, m3, em = mats
-    f = m1.shape[1] // l
-    n_tiles = nb // NBT
-    xspec = pl.BlockSpec((1, NBT, l), lambda bi, i: (bi, i, 0))
-    cspec = lambda a: pl.BlockSpec(a.shape, lambda bi, i: (0,) * a.ndim)
-    ospec = pl.BlockSpec((1, NBT, l), lambda bi, i: (bi, i, 0))
-    kernel = functools.partial(
-        _fused_kernel, f=f, l=l, inv_es=float(1.0 / es)
-    )
-    oshape = jax.ShapeDtypeStruct((b, nb, l), jnp.float32)
+def _run_triton(xr, xi, mats, es, *, interpret: bool):
+    b, nb1, l = xr.shape
+    nb = nb1 - 1
+    f = mats[0].shape[1]
+    ospec = pl.BlockSpec((None, NBT, LT), lambda bi, i, j: (bi, i, j))
+    full = lambda a: pl.BlockSpec(a.shape, lambda bi, i, j: (0,) * a.ndim)
+    oshape = lambda dt: jax.ShapeDtypeStruct((b, nb, l), dt)
+    kernel = functools.partial(_triton_kernel, f=f, inv_es=float(1.0 / es))
     return pl.pallas_call(
         kernel,
-        grid=(b, n_tiles),
-        in_specs=[xspec] * 4 + [cspec(m) for m in mats],
+        grid=(b, nb // NBT, l // LT),
+        in_specs=[full(xr), full(xi)] + [full(m) for m in mats],
         out_specs=[ospec] * 5,
-        out_shape=[oshape] * 5,
+        out_shape=[oshape(jnp.float32), oshape(jnp.int32)]
+        + [oshape(jnp.float32)] * 3,
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=NUM_WARPS),
         interpret=interpret,
-    )(x0r, x0i, x1r, x1i, *mats)
+        name="correlate_reduced",
+    )(xr, xi, *mats)
 
 
-def _matmul_dtype() -> jnp.dtype:
-    """Correlator matmul operand dtype: bf16 by default (the MXU's native
-    input dtype — f32 matmuls run multi-pass on TPU), f32 via
-    LIQUIDDSP_CORRELATOR_DTYPE=float32 or the ``pallas_f32`` backend.
-    Accumulation is f32 either way; bf16 operand rounding costs ~-48 dB
-    relative error on rho2/corr, far below the detector's operating SNR
-    (parity pinned in tests/test_kernels.py)."""
-    import os
+@functools.lru_cache(maxsize=None)
+def _triton_mats(key: tuple, dtype) -> tuple[np.ndarray, ...]:
+    """(Mr, Mi, -Mi, E) split into top/bottom halves per template:
+    [2, F, L, L] each (E has F = 1)."""
+    mr, mi, em = _toeplitz_mats(key)
+    l2, fl = mr.shape
+    l = l2 // 2
+    f = fl // l
+    per_t = lambda m: m.reshape(2, l, f, l).transpose(0, 2, 1, 3)
+    return tuple(
+        np.ascontiguousarray(a).astype(dtype)
+        for a in (per_t(mr), per_t(mi), per_t(-mi), em.reshape(2, 1, l, l))
+    )
 
-    env = os.environ.get("LIQUIDDSP_CORRELATOR_DTYPE", "bfloat16")
-    return jnp.float32 if env in ("float32", "f32") else jnp.bfloat16
 
-
-def correlate_reduced_pallas(
-    x: jax.Array,
-    templates: np.ndarray,
-    interpret: bool = False,
-    dtype: jnp.dtype | None = None,
+def correlate_reduced_triton(
+    x: jax.Array, templates: np.ndarray, interpret: bool = False
 ):
     """x [B, T] complex64, templates [F, L] complex -> dict of [B, T] arrays:
-    rho2, fbin (int32), corr (complex64), energy. Fused Pallas kernel."""
+    rho2, fbin (int32), corr (complex64), energy. Fused Pallas kernel
+    (Triton route), bf16 operands with f32 accumulation."""
     f, l = templates.shape
     b, t = x.shape
-    if dtype is None:
-        dtype = _matmul_dtype()
+    assert l % LT == 0, (l, LT)
+    es = float(np.sum(np.abs(templates[0]) ** 2))
+    mats = tuple(
+        jnp.asarray(m)
+        for m in _triton_mats(_template_key(templates), jnp.bfloat16)
+    )
+    nb = -(-t // l)
+    nb = -(-nb // NBT) * NBT  # whole programs
+    pad = (nb + 1) * l - t
+    planes = [
+        jnp.pad(p.astype(jnp.bfloat16), ((0, 0), (0, pad))).reshape(b, nb + 1, l)
+        for p in (jnp.real(x), jnp.imag(x))
+    ]
+    outs = _run_triton(*planes, mats, es, interpret=interpret)
+    rho2, fb, cre, cim, en = (o.reshape(b, nb * l)[:, :t] for o in outs)
+    return {
+        "rho2": rho2,
+        "fbin": fb,
+        "corr": jax.lax.complex(cre, cim),
+        "energy": en,
+    }
+
+
+def correlate_reduced_mm(
+    x: jax.Array, templates: np.ndarray, dtype: jnp.dtype = jnp.float32
+):
+    """Plain-XLA block-Toeplitz correlator, same contract as
+    ``correlate_reduced_triton``: the [B, T] stream is cut into L-sample
+    blocks and all F correlations for a block of lags come from one
+    [NB, 2L] x [2L, F*L] matmul. Energy uses the same structure with an
+    all-ones Toeplitz, so there is no cumsum scan anywhere. ``dtype`` is
+    the matmul operand type; accumulation is f32 either way.
+    """
+    f, l = templates.shape
+    b, t = x.shape
     es = float(np.sum(np.abs(templates[0]) ** 2))
     mr_np, mi_np, em_np = _toeplitz_mats(_template_key(templates))
     nb = -(-t // l)
-    nb = -(-nb // NBT) * NBT  # whole tiles
     pad = (nb + 1) * l - t
     xr = jnp.pad(jnp.real(x).astype(dtype), ((0, 0), (0, pad)))
     xi = jnp.pad(jnp.imag(x).astype(dtype), ((0, 0), (0, pad)))
     xr = xr.reshape(b, nb + 1, l)
     xi = xi.reshape(b, nb + 1, l)
-    mats = (
-        jnp.asarray(mr_np, dtype),  # Mr
-        jnp.asarray(mr_np + mi_np, dtype),  # Mr + Mi
-        jnp.asarray(mi_np - mr_np, dtype),  # Mi - Mr
-        jnp.asarray(em_np, dtype),
-    )
-    outs = _run_fused(
-        xr[:, :nb], xi[:, :nb], xr[:, 1:], xi[:, 1:], mats, es, interpret=interpret
-    )
-    flat = lambda a: a.reshape(b, nb * l)[:, :t]
-    rho2, fb, cre, cim, en = (flat(o) for o in outs)
-    return {
-        "rho2": rho2,
-        "fbin": fb.astype(jnp.int32),
-        "corr": (cre + 1j * cim).astype(jnp.complex64),
-        "energy": en,
-    }
-
-
-def correlate_reduced_mm(x: jax.Array, templates: np.ndarray):
-    """MXU matmul correlator (pure XLA): block-Toeplitz formulation.
-
-    Same contract as correlate_reduced_pallas but with no Pallas dependency:
-    the [B, T] stream is cut into L-sample blocks and all F correlations for
-    a block of lags come from one [NB, 2L] x [2L, F*L] matmul, which XLA
-    tiles straight onto the MXU. Energy uses the same structure with an
-    all-ones Toeplitz, so there is no cumsum scan anywhere.
-    """
-    f, l = templates.shape
-    b, t = x.shape
-    es = float(np.sum(np.abs(templates[0]) ** 2))
-    mr_np, mi_np, em_np = _toeplitz_mats(_template_key(templates))
-    nb = -(-t // l)
-    pad = (nb + 1) * l - t
-    xr = jnp.pad(jnp.real(x).astype(jnp.float32), ((0, 0), (0, pad)))
-    xi = jnp.pad(jnp.imag(x).astype(jnp.float32), ((0, 0), (0, pad)))
-    xr = xr.reshape(b, nb + 1, l)
-    xi = xi.reshape(b, nb + 1, l)
     xr_cat = jnp.concatenate([xr[:, :nb], xr[:, 1:]], axis=-1)  # [B, NB, 2L]
     xi_cat = jnp.concatenate([xi[:, :nb], xi[:, 1:]], axis=-1)
-    mr = jnp.asarray(mr_np)
-    mi = jnp.asarray(mi_np)
+    mr = jnp.asarray(mr_np, dtype)
+    mi = jnp.asarray(mi_np, dtype)
+    mm = functools.partial(jnp.einsum, "bnk,kf->bnf",
+                           preferred_element_type=jnp.float32)
     # c = (xr + j xi) @ (Mr + j Mi)
-    cr = jnp.einsum("bnk,kf->bnf", xr_cat, mr) - jnp.einsum(
-        "bnk,kf->bnf", xi_cat, mi
-    )
-    ci = jnp.einsum("bnk,kf->bnf", xr_cat, mi) + jnp.einsum(
-        "bnk,kf->bnf", xi_cat, mr
-    )
+    cr = mm(xr_cat, mr) - mm(xi_cat, mi)
+    ci = mm(xr_cat, mi) + mm(xi_cat, mr)
     cr = cr.reshape(b, nb, f, l)
     ci = ci.reshape(b, nb, f, l)
     mag2 = cr * cr + ci * ci  # [B, NB, F, L]
@@ -247,14 +251,15 @@ def correlate_reduced_mm(x: jax.Array, templates: np.ndarray):
     )
     cb_re = jnp.sum(jnp.where(onehot, cr, 0.0), axis=2)
     cb_im = jnp.sum(jnp.where(onehot, ci, 0.0), axis=2)
-    p_cat = xr_cat * xr_cat + xi_cat * xi_cat
-    energy = jnp.einsum("bnk,kl->bnl", p_cat, jnp.asarray(em_np))  # [B, NB, L]
+    xr_f, xi_f = xr_cat.astype(jnp.float32), xi_cat.astype(jnp.float32)
+    p_cat = (xr_f * xr_f + xi_f * xi_f).astype(dtype)
+    energy = mm(p_cat, jnp.asarray(em_np, dtype))  # [B, NB, L]
     rho2 = m2 / (es * jnp.maximum(energy, 1e-12))
     flat = lambda a: a.reshape(b, nb * l)[:, :t]
     return {
         "rho2": flat(rho2),
         "fbin": flat(best),
-        "corr": (flat(cb_re) + 1j * flat(cb_im)).astype(jnp.complex64),
+        "corr": jax.lax.complex(flat(cb_re), flat(cb_im)),
         "energy": flat(energy),
     }
 
@@ -273,25 +278,20 @@ def correlate_reduced_xla(x: jax.Array, templates: np.ndarray):
     return {"rho2": rho2, "fbin": fbin, "corr": cbest, "energy": energy}
 
 
-def correlate_reduced(x: jax.Array, templates: np.ndarray, backend: str = "auto"):
-    """Dispatch: Pallas on TPU, XLA elsewhere (or forced via ``backend`` /
-    the LIQUIDDSP_CORRELATOR_BACKEND env var)."""
-    if backend == "auto":
-        import os
-
-        backend = os.environ.get("LIQUIDDSP_CORRELATOR_BACKEND") or (
-            "pallas" if jax.default_backend() not in ("cpu",) else "mm"
-        )
+def correlate_reduced(
+    x: jax.Array, templates: np.ndarray, backend: str | None = None
+):
+    """Dispatch: ``"triton"`` (the fused kernel; the default on a GPU),
+    ``"triton_interpret"`` (the same kernel in Pallas interpret mode),
+    ``"mm"`` (plain block-Toeplitz matmuls in f32; the default elsewhere)
+    or ``"fft"`` (overlap-save FFT)."""
+    backend = choose(backend, "triton", "mm")
+    if backend == "triton":
+        return correlate_reduced_triton(x, templates)
+    if backend == "triton_interpret":
+        return correlate_reduced_triton(x, templates, interpret=True)
     if backend == "mm":
         return correlate_reduced_mm(x, templates)
-    if backend == "pallas":
-        return correlate_reduced_pallas(x, templates)
-    if backend == "pallas_f32":
-        return correlate_reduced_pallas(x, templates, dtype=jnp.float32)
-    if backend == "pallas_interpret":
-        return correlate_reduced_pallas(x, templates, interpret=True, dtype=jnp.float32)
-    if backend == "pallas_interpret_bf16":
-        return correlate_reduced_pallas(
-            x, templates, interpret=True, dtype=jnp.bfloat16
-        )
-    return correlate_reduced_xla(x, templates)
+    if backend == "fft":
+        return correlate_reduced_xla(x, templates)
+    raise ValueError(f"unknown correlator backend {backend!r}")

@@ -1,25 +1,24 @@
-"""Pallas TPU kernel: exact Viterbi decoding with VMEM-resident state.
+"""Exact Viterbi decoding of the K=7 code as one Pallas kernel (Triton route).
 
-The XLA ``lax.scan`` Viterbi (ops/fec/conv.py) round-trips the [B, 64]
-path-metric carry and per-step decisions through HBM every trellis step —
-~37 ms for a bench-sized block. This kernel keeps everything on-chip:
+The plain decoder (ops/fec/conv.py ``_viterbi_run``) is a ``lax.scan``:
+one sequential loop step per trellis bit for the add-compare-select, and a
+second reversed scan for the traceback. This kernel runs both loops inside
+one program per tile of ``TILE_B`` codewords:
 
-- layout: 64 trellis states on SUBLANES, a 128-wide batch tile on LANES,
-  so path metrics are one (64, 128) f32 VMEM tile;
-- the predecessor gather of the add-compare-select becomes a [64, 64] x
-  [64, 128] matmul with a constant 0/1 routing matrix — the MXU does the
-  shuffle (P0 routes state s' <- s'>>1, P1 routes s' <- (s'>>1)+32);
-- per-step survivor decisions pack into two int32 bit-words per lane
-  (states 0-31 / 32-63) via power-of-two shifts + a sublane reduction;
-- traceback runs in-kernel over the packed words with the state held as a
-  one-hot (64, 128) tile: the decision read is a masked sublane reduction
-  and the state update is another pair of constant-matrix matmuls;
-- all dynamic indexing walks in 8-row chunks so every VMEM load/store is a
-  whole (8, 128) f32 tile (Mosaic alignment rule).
+- the 64 path metrics of each codeword stay in registers as a [TB, 64]
+  f32 tile for the whole trellis;
+- the predecessors of new state s' are s'>>1 and (s'>>1)+32, a fixed
+  butterfly: splitting the metric row into its halves (states 0-31 and
+  32-63) and repeating each entry twice gives both candidate rows, with no
+  gather and no matmul;
+- each step's 64 survivor decisions pack into two int32 words per codeword
+  (states 0-31, 32-63), stored [2, steps, B] in a device-memory output so
+  no trellis length is too long for the kernel;
+- the traceback walks the packed words backwards in the same program.
 
-Exact — same trellis, same tie-breaking (prefer the low-MSB predecessor)
-as the XLA reference; parity-tested bit-for-bit in interpret mode and on
-hardware.
+The arithmetic is the reference's, in the same order and with the same
+tie-break (a tie keeps the predecessor without the high bit), so the
+decoded bits are identical (tests/test_fec.py).
 """
 
 from __future__ import annotations
@@ -30,42 +29,22 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 NSTATES = 64
-MAX_TILE_B = 512
-CHUNK = 8  # trellis steps per aligned VMEM row-chunk
-NEG = -1e9  # plain float: jnp scalars would be captured consts in the kernel
+HALF = NSTATES // 2
+TILE_B = 16  # codewords per program (a power of two)
+NUM_WARPS = 2
+NEG = -1e9  # the reference's "impossible state" metric
 
 
-@functools.lru_cache(maxsize=None)
-def _route_mats():
-    """Constant routing/helper matrices, all [64, 64] f32.
-
-    P0[s', p] = 1 iff p == s'>>1          (ACS candidate 0 gather)
-    P1[s', p] = 1 iff p == (s'>>1) + 32   (ACS candidate 1 gather)
-    A0[p, s'] = 1 iff p == s'>>1          (traceback state update, d=0)
-    A1[p, s'] = 1 iff p == (s'>>1) + 32   (traceback state update, d=1)
-    L  lower-triangular ones               (sublane cumsum for argmax tie-break)
-    """
+def branch_signs(out0: np.ndarray, out1: np.ndarray) -> np.ndarray:
+    """[4, 64] f32 LLR signs per new state s': the expected (c0, c1) of the
+    transition from predecessor s'>>1 (rows 0, 1) and from (s'>>1)+32
+    (rows 2, 3), as +1 for bit 0 and -1 for bit 1."""
     sp = np.arange(NSTATES)
     p0 = sp >> 1
-    p1 = (sp >> 1) + NSTATES // 2
-    P0 = np.zeros((NSTATES, NSTATES), np.float32)
-    P1 = np.zeros((NSTATES, NSTATES), np.float32)
-    P0[sp, p0] = 1.0
-    P1[sp, p1] = 1.0
-    A0 = P0.T.copy()
-    A1 = P1.T.copy()
-    L = np.tril(np.ones((NSTATES, NSTATES), np.float32))
-    return P0, P1, A0, A1, L
-
-
-def _branch_consts(out0: np.ndarray, out1: np.ndarray) -> np.ndarray:
-    """[64, 4] f32: per-new-state LLR signs (e0_p0, e1_p0, e0_p1, e1_p1)."""
-    sp = np.arange(NSTATES)
-    p0 = sp >> 1
-    p1 = (sp >> 1) + NSTATES // 2
+    p1 = p0 + HALF
     u = sp & 1
     return np.stack(
         [
@@ -73,181 +52,93 @@ def _branch_consts(out0: np.ndarray, out1: np.ndarray) -> np.ndarray:
             1.0 - 2.0 * out1[p0, u],
             1.0 - 2.0 * out0[p1, u],
             1.0 - 2.0 * out1[p1, u],
-        ],
-        axis=1,
+        ]
     ).astype(np.float32)
 
 
-def _kernel(lam_ref, e_ref, p0_ref, p1_ref, a0_ref, a1_ref, l_ref, bits_ref,
-            metrics, onehot, dec, *, steps_pad: int, known_start: bool,
-            known_end: bool, tile_b: int):
-    TILE_B = tile_b
-    iota = jax.lax.broadcasted_iota(jnp.int32, (NSTATES, TILE_B), 0)
-    shifts = iota % 32
-    dot = lambda a, b: jnp.dot(a, b, preferred_element_type=jnp.float32)
-
-    e = e_ref[:]  # [64, 4]
-    e00, e10 = e[:, 0:1], e[:, 1:2]
-    e01, e11 = e[:, 2:3], e[:, 3:4]
-    P0, P1, A0, A1, L = p0_ref[:], p1_ref[:], a0_ref[:], a1_ref[:], l_ref[:]
-
-    if known_start:
-        metrics[:] = jnp.where(iota == 0, 0.0, NEG)
-    else:
-        metrics[:] = jnp.zeros((NSTATES, TILE_B), jnp.float32)
-
-    nchunks = steps_pad // CHUNK
-
-    def acs_chunk(cb, _):
-        l0c = lam_ref[0, 0, pl.ds(cb * CHUNK, CHUNK), :]  # [8, 128]
-        l1c = lam_ref[0, 1, pl.ds(cb * CHUNK, CHUNK), :]
-        w0_rows, w1_rows = [], []
-        m = metrics[:]
-        for j in range(CHUNK):
-            l0 = l0c[j : j + 1, :]  # [1, 128]
-            l1 = l1c[j : j + 1, :]
-            cand0 = dot(P0, m) + e00 * l0 + e10 * l1
-            cand1 = dot(P1, m) + e01 * l0 + e11 * l1
-            take1 = cand1 > cand0
-            m = jnp.where(take1, cand1, cand0)
-            m = m - jnp.max(m, axis=0, keepdims=True)
-            ti = jnp.left_shift(take1.astype(jnp.int32), shifts)
-            w0_rows.append(jnp.sum(ti[: NSTATES // 2], axis=0, keepdims=True))
-            w1_rows.append(jnp.sum(ti[NSTATES // 2 :], axis=0, keepdims=True))
-        metrics[:] = m
-        dec[0, pl.ds(cb * CHUNK, CHUNK), :] = jnp.concatenate(w0_rows, axis=0)
-        dec[1, pl.ds(cb * CHUNK, CHUNK), :] = jnp.concatenate(w1_rows, axis=0)
-        return _
-
-    jax.lax.fori_loop(0, nchunks, acs_chunk, None)
-
-    if known_end:
-        onehot[:] = jnp.where(iota == 0, 1.0, 0.0)
-    else:
-        m = metrics[:]
-        eq = (m >= jnp.max(m, axis=0, keepdims=True)).astype(jnp.float32)
-        cum = dot(L, eq)  # sublane cumsum via lower-triangular matmul
-        onehot[:] = jnp.where((eq > 0) & (cum <= 1.0), 1.0, 0.0)
-
-    u_of = (iota & 1).astype(jnp.float32)
-    half = NSTATES // 2
-
-    def tb_chunk(i, _):
-        cb = nchunks - 1 - i
-        w0c = dec[0, pl.ds(cb * CHUNK, CHUNK), :]  # [8, 128] int32
-        w1c = dec[1, pl.ds(cb * CHUNK, CHUNK), :]
-        oh = onehot[:]
-        rows = [None] * CHUNK
-        for j in range(CHUNK - 1, -1, -1):
-            w0 = w0c[j : j + 1, :]
-            w1 = w1c[j : j + 1, :]
-            words = jnp.concatenate(
-                [jnp.broadcast_to(w0, (half, TILE_B)),
-                 jnp.broadcast_to(w1, (half, TILE_B))], axis=0)
-            dec64 = (
-                jax.lax.shift_right_logical(words, shifts) & 1
-            ).astype(jnp.float32)
-            d = jnp.sum(oh * dec64, axis=0, keepdims=True)  # [1, 128]
-            rows[j] = jnp.sum(oh * u_of, axis=0, keepdims=True)
-            oh = (1.0 - d) * dot(A0, oh) + d * dot(A1, oh)
-        onehot[:] = oh
-        bits_ref[0, pl.ds(cb * CHUNK, CHUNK), :] = jnp.concatenate(rows, axis=0)
-        return _
-
-    jax.lax.fori_loop(0, nchunks, tb_chunk, None)
+def _repeat2(h: jax.Array) -> jax.Array:
+    """[TB, 32] -> [TB, 64] with out[:, s'] = h[:, s' >> 1]."""
+    tb = h.shape[0]
+    return jnp.broadcast_to(h[:, :, None], (tb, HALF, 2)).reshape(tb, NSTATES)
 
 
-def _tile_b(steps_pad: int) -> int:
-    """Batch-tile width from a VMEM budget on the trellis length.
+def _kernel(lam_ref, e_ref, bits_ref, dec_ref, *, steps: int, interpret: bool):
+    cols = pl.ds(pl.program_id(0) * TILE_B, TILE_B)
+    state_idx = jax.lax.broadcasted_iota(jnp.int32, (1, NSTATES), 1)
+    shifts = state_idx % HALF
+    e00, e10, e01, e11 = (e_ref[r, :][None, :] for r in range(4))
 
-    Every large allocation scales as steps_pad * TILE_B: the input LLR
-    block [2, steps, T] f32, the packed-decision scratch [2, steps, T]
-    i32, and the double-buffered output block [steps, T] f32. Measured
-    boundary at T=512: steps_pad 2384 compiles, 4160 OOMs scoped vmem
-    ("16.72M > 16.00M" on the output's stack allocation). Budgeting the
-    binding double-buffered-output term at 12 MB keeps long-frame configs
-    (payload 256 + Golay + V27 = 4160 steps) compiling; lanes stay a
-    128-multiple. Trellises too long for even T=128 fall back to the XLA
-    scan in ops/fec/conv.decode (PALLAS_MAX_STEPS)."""
-    t = (12_000_000 // (steps_pad * 8) // 128) * 128
-    return int(max(128, min(MAX_TILE_B, t)))
+    def acs(t, m):
+        l0 = lam_ref[0, t, cols][:, None]  # [TB, 1]
+        l1 = lam_ref[1, t, cols][:, None]
+        lo, hi = jnp.split(m, 2, axis=1)
+        cand0 = _repeat2(lo) + l0 * e00 + l1 * e10
+        cand1 = _repeat2(hi) + l0 * e01 + l1 * e11
+        take1 = cand1 > cand0
+        new = jnp.where(take1, cand1, cand0)
+        new = new - jnp.max(new, axis=1, keepdims=True)
+        # distinct bits, so the sum is the OR (bit 31 wraps to the sign)
+        w = jnp.left_shift(take1.astype(jnp.int32), shifts)
+        w_lo, w_hi = jnp.split(w, 2, axis=1)
+        dec_ref[0, t, cols] = jnp.sum(w_lo, axis=1)
+        dec_ref[1, t, cols] = jnp.sum(w_hi, axis=1)
+        return new
+
+    m0 = jnp.where(state_idx == 0, 0.0, NEG) + jnp.zeros((TILE_B, 1), jnp.float32)
+    jax.lax.fori_loop(0, steps, acs, m0)
+    if not interpret:  # the interpreter runs one thread and has no barrier
+        # the traceback reads words other threads of this program stored
+        pltriton.debug_barrier()
+
+    def traceback(i, state):
+        t = steps - 1 - i
+        w = jnp.where(state >= HALF, dec_ref[1, t, cols], dec_ref[0, t, cols])
+        d = jax.lax.shift_right_logical(w, state & (HALF - 1)) & 1
+        bits_ref[t, cols] = (state & 1).astype(jnp.int8)
+        return (state >> 1) | (d << 5)
+
+    # terminated trellis: the final state is 0
+    jax.lax.fori_loop(0, steps, traceback, jnp.zeros((TILE_B,), jnp.int32))
 
 
-# beyond this even TILE_B=128 would blow the budget — conv.decode routes to
-# the XLA scan backend instead
-PALLAS_MAX_STEPS = 11_000
-
-
-@functools.partial(
-    jax.jit, static_argnames=("steps_pad", "known_start", "known_end",
-                              "interpret", "tile_b")
-)
-def _run(lam4, e, *, steps_pad: int, known_start: bool, known_end: bool,
-         interpret: bool, tile_b: int):
-    n_tiles = lam4.shape[0]
-    TILE_B = tile_b
-    P0, P1, A0, A1, L = (jnp.asarray(m) for m in _route_mats())
-    kernel = functools.partial(
-        _kernel, steps_pad=steps_pad, known_start=known_start,
-        known_end=known_end, tile_b=tile_b,
-    )
-    cspec = lambda a: pl.BlockSpec(a.shape, lambda i: (0,) * a.ndim)
-    bits = pl.pallas_call(
+@functools.partial(jax.jit, static_argnames=("interpret",))
+def _run(lam_t, e, *, interpret: bool):
+    _, steps, b_pad = lam_t.shape
+    kernel = functools.partial(_kernel, steps=steps, interpret=interpret)
+    full = lambda shape: pl.BlockSpec(shape, lambda i: (0,) * len(shape))
+    bits, _ = pl.pallas_call(
         kernel,
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec((1, 2, steps_pad, TILE_B), lambda i: (i, 0, 0, 0)),
-            cspec(e), cspec(P0), cspec(P1), cspec(A0), cspec(A1), cspec(L),
+        grid=(b_pad // TILE_B,),
+        in_specs=[full(lam_t.shape), full(e.shape)],
+        out_specs=[full((steps, b_pad)), full((2, steps, b_pad))],
+        out_shape=[
+            jax.ShapeDtypeStruct((steps, b_pad), jnp.int8),
+            jax.ShapeDtypeStruct((2, steps, b_pad), jnp.int32),
         ],
-        out_specs=pl.BlockSpec((1, steps_pad, TILE_B), lambda i: (i, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((n_tiles, steps_pad, TILE_B), jnp.float32),
-        scratch_shapes=[
-            pltpu.VMEM((NSTATES, TILE_B), jnp.float32),   # path metrics
-            pltpu.VMEM((NSTATES, TILE_B), jnp.float32),   # one-hot tb state
-            pltpu.VMEM((2, steps_pad, TILE_B), jnp.int32),  # packed decisions
-        ],
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=NUM_WARPS),
         interpret=interpret,
-    )(lam4, jnp.asarray(e), P0, P1, A0, A1, L)
+        name="viterbi",
+    )(lam_t, e)
     return bits
 
 
-def viterbi_pallas(
+def viterbi_triton(
     lam: jax.Array,
     out0: np.ndarray,
     out1: np.ndarray,
-    known_start: bool = True,
-    known_end: bool = True,
     interpret: bool = False,
 ) -> jax.Array:
-    """Exact Viterbi: depunctured LLR pairs lam [B, steps, 2] -> decoded
-    bits [B, steps] int8. ``out0/out1`` are the trellis output tables
-    (conv._trellis_tables). Boundary states pinned to 0 when known."""
+    """Terminated-trellis Viterbi: depunctured LLR pairs lam [B, steps, 2]
+    (positive = bit 0) -> decoded bits [B, steps] int8. ``out0/out1`` are
+    the trellis output tables (conv._trellis_tables). The batch is padded
+    to a whole number of ``TILE_B`` tiles with zero LLRs."""
     b, steps, _ = lam.shape
-    steps_pad = -(-steps // CHUNK) * CHUNK
-    if steps_pad > PALLAS_MAX_STEPS:
-        raise ValueError(
-            f"trellis of {steps_pad} padded steps exceeds PALLAS_MAX_STEPS="
-            f"{PALLAS_MAX_STEPS}: even TILE_B=128 would overflow the 16 MB "
-            "scoped-vmem budget at Mosaic compile. Use ops/fec/conv.decode, "
-            "which routes long trellises to the XLA scan backend."
-        )
-    TILE_B = _tile_b(steps_pad)
     b_pad = -(-b // TILE_B) * TILE_B
-    # pad steps with strong zero-bit LLRs (state 0 self-loop emits 00, so
-    # this extends the terminated trellis harmlessly); pad batch with zeros
-    lam_p = jnp.pad(
-        lam.astype(jnp.float32),
-        ((0, b_pad - b), (0, steps_pad - steps), (0, 0)),
-    )
-    if steps_pad != steps:
-        tail = jnp.zeros((b_pad, steps_pad - steps, 2), jnp.float32) + 1e4
-        lam_p = jnp.concatenate([lam_p[:, :steps], tail], axis=1)
-    n_tiles = b_pad // TILE_B
-    lam4 = lam_p.reshape(n_tiles, TILE_B, steps_pad, 2).transpose(0, 3, 2, 1)
-    e = _branch_consts(out0, out1)
-    bits = _run(
-        lam4, e, steps_pad=steps_pad, known_start=known_start,
-        known_end=known_end, interpret=interpret, tile_b=TILE_B,
-    )  # [n_tiles, steps_pad, TILE_B]
-    bits = bits.transpose(0, 2, 1).reshape(b_pad, steps_pad)
-    return bits[:b, :steps].astype(jnp.int8)
+    lam_t = jnp.pad(
+        jnp.transpose(lam.astype(jnp.float32), (2, 1, 0)),
+        ((0, 0), (0, 0), (0, b_pad - b)),
+    )  # [2, steps, B_pad]: each step's LLRs are contiguous over the batch
+    e = jnp.asarray(branch_signs(out0, out1))
+    bits = _run(lam_t, e, interpret=interpret)
+    return bits[:, :b].T

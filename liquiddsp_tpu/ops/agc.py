@@ -1,7 +1,7 @@
 """Automatic gain control, batched.
 
 liquid's flexframesync runs a per-sample AGC in front of detection
-(SURVEY.md section 2.2 AGC/NCO/symbol-sync row). Block-dense TPU version:
+(SURVEY.md section 2.2 AGC/NCO/symbol-sync row). Block-dense version:
 
 - ``agc_block``: one gain per block (RMS normalize) — what the detector's
   energy normalization already implies; exposed for pipeline use.
@@ -9,7 +9,7 @@ liquid's flexframesync runs a per-sample AGC in front of detection
   batched analog of a per-sample tracking loop for slowly varying levels.
 - ``agc_scan``: faithful first-order tracking loop (attack/decay bandwidth
   alpha) as a ``lax.scan`` — for parity experiments where loop dynamics
-  matter; O(T) sequential, prefer the windowed form on TPU.
+  matter; O(T) sequential, prefer the windowed form on an accelerator.
 """
 
 from __future__ import annotations

@@ -11,7 +11,7 @@ for completeness of the check family.
 
 Implementation: byte-at-a-time table lookup. The 256-entry table is a
 compile-time constant; the per-byte update is a ``lax.scan`` over message
-length with the batch dimension vectorized on the VPU (gather + shifts).
+length with the batch dimension vectorized (gather + shifts).
 """
 
 from __future__ import annotations
@@ -82,7 +82,7 @@ def _crc_matrix(length: int, poly: int, width: int, init: int):
     unit message with only bit j set and init 0 — and c0 bits [width]
     float32, the CRC of the all-zero message with the real init). One
     [N, 8L] x [8L, W] matmul replaces the per-byte lax.scan — the scan is a
-    length-L sequential chain of tiny gathers, the single worst TPU shape.
+    length-L sequential chain of tiny gathers.
     """
     rows = []
     for j in range(8 * length):
@@ -103,8 +103,9 @@ def _crc_matrix(length: int, poly: int, width: int, init: int):
 def _crc_jax(msg_bytes: jax.Array, poly: int, width: int, init: int) -> jax.Array:
     """Batched CRC over uint8 messages [..., L] -> uint32 [...].
 
-    GF(2) matmul formulation (MXU): unpack bits, one f32 matmul against the
-    per-length constant matrix, parity, repack. Exact: row sums < 2^24.
+    GF(2) matmul formulation: unpack bits, one f32 matmul against the
+    per-length constant matrix, parity, repack. Exact: row sums < 2^24,
+    and 0/1 operands are exact even where the matmul runs in TF32.
     """
     length = msg_bytes.shape[-1]
     f_np, c0_np = _crc_matrix(length, poly, width, init)

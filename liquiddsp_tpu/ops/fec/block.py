@@ -8,8 +8,8 @@ ones (shortened Hamming / extended Golay); TX and RX share them, so loopback
 bit-exactness holds by construction, and error-correction radii match the
 code families' guarantees (1 bit for Hamming/SEC-DED, 3 bits for Golay).
 
-TPU mapping: encode is a bit-level matmul with the parity matrix P
-(``m @ P mod 2`` — int32 matmul on the MXU for large batches); decode is a
+Array mapping: encode is a bit-level matmul with the parity matrix P
+(``m @ P mod 2`` as an f32 matmul for large batches); decode is a
 syndrome matmul + a table gather (syndrome -> error-bit index), fully
 vectorized over blocks. Syndrome tables are small compile-time constants
 (max 4096 entries for Golay).
@@ -67,8 +67,7 @@ def _decode_golay_packed(s: jax.Array) -> jax.Array:
     branch that fires is unique and equals the syndrome table's entry;
     weight-4 cosets fire no branch and return 0, also matching the table.
     All ops are popcounts/XORs on packed int32 lanes — no gather, fully
-    XLA-fusable (the table gather this replaces was the header-decode hot
-    spot, bench/EQ_ABLATION.json).
+    XLA-fusable (no table gather in the header decode).
     """
     b = _golay_b_matrix().astype(np.int64)
     row_pk = [int(v) for v in b @ (1 << np.arange(12))]  # rows of B, packed
@@ -158,8 +157,8 @@ class LinearBlockCode:
     def encode(self, bits: jax.Array) -> jax.Array:
         """bits [..., nblocks*k] int8 -> [..., nblocks*n] int8.
 
-        f32 matmul (MXU path — int matmuls don't tile onto the MXU); exact
-        since row sums < 2^24."""
+        f32 matmul; exact since row sums < 2^24 and 0/1 operands are exact
+        even where the matmul runs in TF32."""
         p = jnp.asarray(self.p, dtype=jnp.float32)
         shape = bits.shape[:-1] + (bits.shape[-1] // self.k, self.k)
         m = bits.reshape(shape).astype(jnp.float32)
@@ -170,11 +169,9 @@ class LinearBlockCode:
     def decode(self, bits: jax.Array) -> jax.Array:
         """bits [..., nblocks*n] int8 -> corrected data [..., nblocks*k] int8.
 
-        Gather-free: a syndrome-table gather (r4 design) cost ~0.3 ms/block
-        on hardware at the header's stacked [B, K, 3, 15] shape (TPU gathers
-        are scalar-bandwidth-bound; bench/EQ_ABLATION.json). Single-error
-        codes instead compare the packed syndrome against the k data-column
-        syndromes (one broadcast equality, VPU-fusable); Golay takes the
+        Gather-free: single-error codes compare the packed syndrome against
+        the k data-column syndromes (one broadcast equality, fusable);
+        Golay takes the
         arithmetic decoder below. Both are bit-identical to the table
         (single-error syndromes are distinct columns of H; see
         _decode_golay_packed for the Golay argument)."""

@@ -12,12 +12,12 @@ Framework spec:
 - puncturing: periodic keep-masks over the (c0, c1) streams (patterns below,
   framework-defined); depuncturing inserts zero-LLR erasures.
 
-TPU mapping: the encoder is a whole-sequence bit matmul (each output bit is a
-fixed XOR of <=7 message bits — expressed with shifts/XORs on the VPU). The
-Viterbi decoder is a ``lax.scan`` over symbols whose per-step
-add-compare-select is fully vectorized over the 64 states and the batch
-dimension; the traceback is a second reversed scan over the stored decision
-bits. State metrics stay in registers/VMEM across the scan.
+Array mapping: the encoder computes each output bit as a fixed XOR of <=7
+shifted message bits (no scan). The plain Viterbi decoder is a
+``lax.scan`` over symbols whose per-step add-compare-select is vectorized
+over the 64 states and the batch dimension; the traceback is a second
+reversed scan over the stored decision bits. On a GPU both loops run
+inside one Pallas kernel instead (kernels/viterbi.py).
 """
 
 from __future__ import annotations
@@ -27,6 +27,8 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from liquiddsp_tpu.kernels import choose
 
 G0 = 0o133  # 0b1011011
 G1 = 0o171  # 0b1111001
@@ -129,7 +131,7 @@ def encode(bits: jax.Array, inner_code: int) -> jax.Array:
     """bits [..., nbits] int8 -> coded [..., num_coded_bits] int8.
 
     ``inner_code`` is static. Encoding c_i[t] = XOR of message bits in a
-    7-tap window — computed with 7 shifted XOR terms on the VPU (no scan).
+    7-tap window — computed with 7 shifted XOR terms (no scan).
     """
     if inner_code == 0:
         return bits.astype(jnp.int8)
@@ -178,7 +180,7 @@ def decode(
     nbits: int,
     inner_code: int,
     segmented: bool | None = None,
-    backend: str = "auto",
+    backend: str | None = None,
 ) -> jax.Array:
     """Soft-input Viterbi: llrs [..., num_coded_bits] -> bits [..., nbits] int8.
 
@@ -186,11 +188,11 @@ def decode(
     ops.modem.demod_soft_bits). Hard bits b can be passed as ``1 - 2b``.
     Terminated trellis (forced final state 0). ``nbits``/``inner_code`` static.
 
-    Backends: "pallas" (default on TPU) runs the exact VMEM-resident kernel
-    (kernels/viterbi.py — the lax.scan formulation round-trips the metric
-    carry through HBM every trellis step and is ~20x slower at batch);
-    "xla" is the scan reference; ``segmented=True`` additionally cuts the
-    trellis into parallel overlap segments (approximate at the overlap
+    ``backend``: "triton" runs both Viterbi loops in one Pallas kernel
+    (kernels/viterbi.py; the default on a GPU), "triton_interpret" the same
+    kernel in Pallas interpret mode, "xla" the ``lax.scan`` reference (the
+    default elsewhere). ``segmented=True`` instead cuts the trellis into
+    parallel overlap segments on the scan (approximate at the overlap
     boundaries with astronomically small probability; kept for study).
     """
     if inner_code == 0:
@@ -207,25 +209,13 @@ def decode(
     full = full.at[:, keep_idx].set(x)
     lam = full.reshape(b, steps, 2)
 
-    if backend == "auto":
-        import os
+    backend = choose(backend, "triton", "xla")
+    if backend in ("triton", "triton_interpret") and not segmented:
+        from liquiddsp_tpu.kernels.viterbi import viterbi_triton
 
-        backend = os.environ.get("LIQUIDDSP_VITERBI_BACKEND") or (
-            "pallas" if jax.default_backend() not in ("cpu",) else "xla"
-        )
-    if backend in ("pallas", "pallas_interpret") and not segmented:
-        from liquiddsp_tpu.kernels.viterbi import PALLAS_MAX_STEPS, viterbi_pallas
-
-        if steps > PALLAS_MAX_STEPS:
-            # trellis too long for the kernel's VMEM budget even at the
-            # narrowest batch tile (kernels/viterbi.py _tile_b) — the XLA
-            # scan below is slower but unbounded
-            backend = "xla"
-    if backend in ("pallas", "pallas_interpret") and not segmented:
         out0, out1 = _trellis_tables()
-        bits = viterbi_pallas(
-            lam, out0, out1, known_start=True, known_end=True,
-            interpret=backend == "pallas_interpret",
+        bits = viterbi_triton(
+            lam, out0, out1, interpret=backend == "triton_interpret"
         )
         return bits[:, :nbits].reshape(batch_shape + (nbits,))
 

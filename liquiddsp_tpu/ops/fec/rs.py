@@ -9,7 +9,7 @@ Framework spec:
   as possible; each block of k_i <= 223 data bytes is encoded shortened
   (virtual leading zeros) to k_i + 32 transmitted bytes.
 
-TPU mapping: GF multiplies go through log/exp table gathers (VPU); the
+Array mapping: GF multiplies go through log/exp table gathers; the
 encoder is a ``lax.scan`` LFSR over message bytes with the 32-wide parity
 state vectorized (and batch vectorized); syndromes are Horner scans; the
 Berlekamp-Massey iteration is a fixed-32-step ``fori_loop`` with

@@ -3,7 +3,7 @@
 Replaces liquid-dsp's scalar per-sample interp/decim inside
 ``flexframegen_write_samples`` / ``flexframesync_execute``
 (SURVEY.md section 2.2, filter/interp row) with whole-block convolutions that
-XLA lowers to MXU-tiled convs. Taps are real (RRC family), signals complex64:
+XLA lowers to batched convolutions. Taps are real (RRC family), signals complex64:
 a complex-by-real convolution is two real convolutions.
 
 Conventions (shared by phy/framegen and phy/framesync):

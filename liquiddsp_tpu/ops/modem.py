@@ -9,8 +9,8 @@ liquid's exact tables are not replicated — TX and RX here share one table, so
 loopback consistency holds by construction).
 
 All constellations have unit average energy. Hard demodulation is a
-minimum-distance search expressed as an inner-product score matrix — a
-[N, M] matmul that XLA tiles onto the MXU for large batches.
+minimum-distance search expressed as an inner-product score over the
+constellation, an elementwise broadcast (no matmul, so no TF32 rounding).
 
 DPSK is differential: TX accumulates phase increments (parallel cumsum), RX
 demodulates the one-lag phase difference r_n * conj(r_{n-1}) against the
@@ -187,7 +187,7 @@ def demod_hard(symbols: jax.Array, mod: int) -> jax.Array:
     """Received symbols [..., n] -> hard symbol indices [..., n] (int32).
 
     Min-distance via score = Re(r conj(c)) - |c|^2/2, maximized over the
-    constellation — two real matmuls, MXU-friendly.
+    constellation — elementwise broadcasts that XLA fuses.
     """
     table = jnp.asarray(constellation(mod))
     if is_differential(mod):

@@ -1,7 +1,7 @@
 """Numerically-controlled oscillator: mixing / derotation, batched.
 
 liquid's flexframesync uses an NCO to remove the estimated carrier offset
-before symbol recovery (SURVEY.md section 2.2). On TPU a mix is a closed-form
+before symbol recovery (SURVEY.md section 2.2). Here a mix is a closed-form
 phase ramp (no per-sample recursion): exp(-j(dphi*n + phi)).
 """
 

@@ -122,7 +122,7 @@ def _lowrank_apply(x: jax.Array, plans, H: np.ndarray, ntaps: int,
     combines y[i] = sum_k w[i, k] z_k[i + d[i]]. ``plans`` holds one
     _lowrank_plan per equal contiguous group along axis 0.
 
-    ``compute_dtype=jnp.bfloat16`` runs the conv on the MXU with bf16
+    ``compute_dtype=jnp.bfloat16`` runs the conv with bf16
     operands AND stores the rank planes in bf16 — the planes are the HBM
     cost of the whole path, so this nearly halves its traffic for a
     ~-50 dB RMS (-36 dB max) quantization floor (far under any operating
@@ -201,15 +201,13 @@ def arbitrary(x: jax.Array, rate: float, out_len: int, num_phases: int = 32,
     d = base - np.arange(out_len)  # integer shift per output (static)
     runs = np.nonzero(np.diff(d))[0] + 1
     # The Farrow path's per-segment cost is K+1 static slices, so it stays
-    # profitable out to a few hundred integer-shift runs (~0.12 -> ~2
-    # Gsamp/s at 500 ppm x 65536, where the gather path was the only
-    # option); the 33-slice-per-segment stencil fallback stops paying past
-    # ~32.
+    # profitable out to a few hundred integer-shift runs (500 ppm x 65536,
+    # where the gather path was the only option); the 33-slice-per-segment
+    # stencil fallback stops paying past ~32.
     if len(runs) + 1 <= 256:
         # Near-unity (ppm-rate) fast path: low-rank FARROW structure. The
-        # per-tap shifted-slice stencil made ntaps(=33) separate HBM
-        # passes over the block (measured ~3 ms at 64x65536 — as slow as
-        # the whole RX); a rank-r factorization of the fractional-delay
+        # per-tap shifted-slice stencil made ntaps(=33) separate passes
+        # over the block in device memory; a rank-r factorization of the fractional-delay
         # bank, bank(mu)[v] ~= sum_k w_k(mu) H[k, v] (SVD basis — reaches
         # a degree-6 polynomial's residual with 5 planes instead of 7),
         # turns it into r FIXED-tap convolutions (ONE conv with r output
@@ -258,7 +256,7 @@ def arbitrary_groups(x: jax.Array, rates, out_len: int,
     near-unity rates the low-rank Farrow conv ``z_k = H[k] * x`` is
     rate-INDEPENDENT (the SVD basis depends only on the anti-alias
     cutoff), so one batched conv over all channels replaces G small-batch
-    convs (measured 4x16ch on TPU: 14.0 -> ~2 ms/block); only the cheap
+    convs; only the cheap
     per-group static-weight combine differs. Falls back to per-group
     :func:`arbitrary` calls outside the shared-kernel regime (any rate
     >1e-3 from unity, sharp bank, or too many integer-shift runs)."""

@@ -1,8 +1,8 @@
 """Device-mesh construction and sharding helpers.
 
 The reference has no parallelism of its own (SURVEY.md section 2.4): its
-concurrency is GR's thread-per-block scheduler. TPU-natively the two
-first-class axes are:
+concurrency is GR's thread-per-block scheduler. Here the two first-class
+axes are:
 
 - ``ch``  (channel / data parallel): independent RX/TX channels sharded over
   chips with no cross-channel communication (BASELINE config 3: "64
@@ -10,7 +10,7 @@ first-class axes are:
 - ``time`` (sequence parallel): one contiguous sample stream split into
   time blocks across chips, with overlap-save halo exchange of boundary
   samples via ppermute (BASELINE config 5; parallel/halo.py) — the SDR
-  analog of ring attention's neighbor ring over ICI.
+  analog of ring attention's neighbor ring.
 
 Multi-host initialization uses jax.distributed (gRPC bootstrap); a single
 process sees its local mesh slice the usual way.
@@ -33,8 +33,8 @@ def make_mesh(
 ) -> Mesh:
     """Build a (time, ch) mesh over the available devices.
 
-    Defaults: all devices on the time axis (n_ch=1). Time-block neighbors
-    are adjacent on the device list so ppermute halos ride ICI neighbors.
+    Defaults: all devices on the time axis (n_ch=1). The mesh follows the
+    algorithm alone: the cards of a host are joined all to all.
     """
     devices = devices if devices is not None else jax.devices()
     n = len(devices)

@@ -1,5 +1,5 @@
 """Batched preamble frame detector — the reference's frame_detector_cc /
-liquid qdetector_cccf analog, redesigned block-dense for TPU.
+liquid qdetector_cccf analog, redesigned block-dense for an accelerator.
 
 The reference pushes samples one at a time through an FFT correlator
 (lib/frame_detector_cc_impl.cc:76-83, template built at cc:46-55, threshold
@@ -121,6 +121,20 @@ class Detections:
     tau: jax.Array  # [B, K] float32 — fractional timing (-0.5..0.5 samples)
 
 
+def extract_windows(x: jax.Array, starts: jax.Array, n: int) -> jax.Array:
+    """[B, T] complex, starts [B, K] int32 -> windows [B, K, n] complex64.
+
+    Reads past T return zeros (the caller guarantees starts <= T-1). XLA
+    lowers the vmapped slice to one gather that it fuses into consumers.
+    """
+    xp = jnp.pad(x, ((0, 0), (0, n)))
+    return jax.vmap(
+        lambda row, ss: jax.vmap(
+            lambda s0: jax.lax.dynamic_slice_in_dim(row, s0, n), in_axes=0
+        )(ss)
+    )(xp, starts)
+
+
 def correlate(x: jax.Array) -> tuple[jax.Array, jax.Array]:
     """Overlap-save correlation of [B, T] against the template bank.
 
@@ -183,7 +197,7 @@ def detect(
     max_frames: int,
     threshold: float = DEFAULT_THRESHOLD,
     min_spacing: int = TEMPLATE_LEN,
-    backend: str = "auto",
+    backend: str | None = None,
     fine: bool = True,
     return_count: bool = False,
 ):
@@ -195,10 +209,9 @@ def detect(
     2*min_spacing samples (a peak must dominate its own block and both
     neighbors), so two genuine frames must start > 2*min_spacing apart to
     both be reported. Frames are in practice far longer than that (the
-    shortest frame is ~536 samples vs the default 128). ``backend``:
-    "auto" uses the fused Pallas
-    correlator kernel on TPU and the XLA FFT path on CPU
-    (kernels/correlator.py). ``fine=False`` skips the fine CFO refinement
+    shortest frame is ~536 samples vs the default 128). ``backend`` is
+    the correlator's (kernels/correlator.correlate_reduced; None picks by
+    platform). ``fine=False`` skips the fine CFO refinement
     (dphi is then the coarse bin center) — used by the framesync, which
     refines from its own frame windows instead of re-extracting preambles.
     ``return_count=True`` additionally returns the TOTAL threshold-passing
@@ -220,9 +233,9 @@ def detect(
     # local-max suppression, block-hierarchical: a candidate must be the max
     # of its own min_spacing-sample block and both neighbor blocks
     # (suppression radius min_spacing..2*min_spacing — frames are always
-    # farther apart than that). A direct reduce_window over +/-min_spacing
-    # compiles pathologically on TPU (large-window unroll); the block-max +
-    # neighbor-max formulation is three cheap reductions.
+    # farther apart than that). The block-max + neighbor-max formulation is
+    # three cheap reductions, where a reduce_window over +/-min_spacing
+    # would unroll a large window.
     blk = min_spacing
     nb = -(-t // blk)
     rp = jnp.pad(rho2, ((0, 0), (0, nb * blk - t)), constant_values=-1.0)
@@ -262,8 +275,6 @@ def detect(
     # CFO: coarse (best bin) + optional fine (dual-half phase slope)
     coarse = jnp.asarray([cfo_of_bin(bb) for bb in CFO_BINS], dtype=jnp.float32)[fbin]
     if fine:
-        from liquiddsp_tpu.kernels.extract import extract_windows
-
         wins = extract_windows(x, jnp.clip(start, 0, t - 1), TEMPLATE_LEN)
         dphi = coarse + fine_cfo(wins, coarse, tau)
     else:

@@ -1,4 +1,4 @@
-"""The flexframe-TPU frame format: geometry as a pure function of config.
+"""The flexframe format: geometry as a pure function of config.
 
 Frame structure (this framework's spec; role-equivalent to liquid-dsp's
 flexframe as pinned by the reference — SURVEY.md section 2.2 flexframegen row):

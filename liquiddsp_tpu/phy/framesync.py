@@ -1,9 +1,9 @@
 """Frame synchronizer (RX): the reference's flex_rx / liquid flexframesync
-analog, restructured block-dense for TPU.
+analog, restructured block-dense for an accelerator.
 
 liquid's flexframesync is a per-sample sequential state machine (AGC ->
 qdetector -> NCO mix -> matched-filter decim -> header demod/decode ->
-payload demod/decode -> callback; SURVEY.md section 3.2). The TPU design
+payload demod/decode -> callback; SURVEY.md section 3.2). This design
 processes a whole block [B, T] at once (SURVEY.md section 7.3):
 
 1. dense preamble detection over the block (phy/detector.py) -> top-K
@@ -45,7 +45,7 @@ from liquiddsp_tpu.ops import crc, modem, rrc
 from liquiddsp_tpu.ops.fec import registry
 from liquiddsp_tpu.ops.fec.block import golay2412
 from liquiddsp_tpu.phy import frame_spec as fs
-from liquiddsp_tpu.phy.detector import Detections, detect
+from liquiddsp_tpu.phy.detector import Detections, detect, extract_windows
 
 NUM_TIMING_PHASES = 32
 
@@ -259,8 +259,6 @@ def extract_symbols(
     filtering with the per-candidate fractional-delay filter, and k=2
     decimation. ``n_syms`` is static (max frame symbols).
     """
-    from liquiddsp_tpu.kernels.extract import extract_windows
-
     n_samples = fs.K_SAMP * n_syms + fs.PULSE_TAIL
     win = extract_windows(x, det.start, n_samples)
     return symbols_from_windows(win, det, n_syms, timing_bank)
@@ -272,34 +270,17 @@ def symbols_from_windows(
     """Per-candidate raw windows [B, K, 2*n_syms + PULSE_TAIL] -> symbol
     estimates [B, K, n_syms].
 
-    TPU formulation: matched filter + decimation as a 15-tap polyphase FMA
-    over the even/odd sample phases — 30 statically-sliced fused
-    multiply-adds over [B, K, n_syms], no per-candidate convolution (a
-    vmap'd ``jnp.convolve`` was the single hottest op in the RX pipeline).
+    Matched filter + decimation as a 15-tap polyphase FMA over the
+    even/odd sample phases — 30 statically-sliced fused multiply-adds over
+    [B, K, n_syms], no per-candidate convolution — which XLA fuses with the
+    derotation into one loop.
 
     ``timing_bank=False`` skips per-candidate fractional-delay selection
     (all candidates share the symmetric prototype).
     """
-    n_samples = win.shape[-1]
     win = _derotate_window(win, det)
-
     half = (fs.PULSE_LEN + 1) // 2  # 15 taps per polyphase arm
-    if timing_bank:
-        # detector tau is "signal arrives tau samples late"; sampling at the
-        # fixed even decimation grid must then be *advanced* by tau, which
-        # this bank's delay-indexed rows express as row -tau (verified to
-        # -50 dB EVM against injected fractional delays; the +tau indexing
-        # shipped in round 1 actively degraded EVM vs no correction)
-        p_half = NUM_TIMING_PHASES // 2
-        q = jnp.clip(
-            jnp.round(-det.tau * NUM_TIMING_PHASES).astype(jnp.int32), -p_half, p_half
-        ) + p_half
-        taps30 = jnp.asarray(_timing_bank30())[q]  # [B, K, 30]
-    else:
-        t30 = np.zeros(fs.PULSE_LEN + 1, dtype=np.float32)
-        t30[: fs.PULSE_LEN] = rrc.matched_taps()[::-1]
-        taps30 = jnp.broadcast_to(jnp.asarray(t30), det.start.shape + (fs.PULSE_LEN + 1,))
-
+    taps30 = _candidate_taps30(det, timing_bank)
     we = win[..., 0::2]  # [B, K, n_syms + half - 1]
     wo = win[..., 1::2]
     y = jnp.zeros(det.start.shape + (n_syms,), dtype=jnp.complex64)
@@ -310,9 +291,12 @@ def symbols_from_windows(
 
 
 def _candidate_taps30(det: Detections, timing_bank: bool) -> jax.Array:
-    """Per-candidate 30-tap matched-filter rows [B, K, 30] (the fractional
-    -delay bank selection of symbols_from_windows, factored out for the
-    fused recovery kernel)."""
+    """Per-candidate 30-tap matched-filter rows [B, K, 30].
+
+    The detector's tau is "signal arrives tau samples late"; sampling at
+    the fixed even decimation grid must then be *advanced* by tau, which
+    the bank's delay-indexed rows express as row -tau (verified to -50 dB
+    EVM against injected fractional delays)."""
     if timing_bank:
         p_half = NUM_TIMING_PHASES // 2
         q = jnp.clip(
@@ -322,18 +306,6 @@ def _candidate_taps30(det: Detections, timing_bank: bool) -> jax.Array:
     t30 = np.zeros(fs.PULSE_LEN + 1, dtype=np.float32)
     t30[: fs.PULSE_LEN] = rrc.matched_taps()[::-1]
     return jnp.broadcast_to(jnp.asarray(t30), det.start.shape + (fs.PULSE_LEN + 1,))
-
-
-def _recover_backend() -> str:
-    """Symbol-recovery backend: the fused Pallas derotate+MF kernel on TPU
-    (kernels/recover.py), the XLA slice-FMA formulation elsewhere.
-    Override via LIQUIDDSP_RECOVER_BACKEND=fused|fused_interpret|xla."""
-    import os
-
-    env = os.environ.get("LIQUIDDSP_RECOVER_BACKEND")
-    if env:
-        return env
-    return "fused" if jax.default_backend() not in ("cpu",) else "xla"
 
 
 def decode_header_full(hdr_syms: jax.Array):
@@ -367,11 +339,9 @@ def decode_header_multi(regions: list[jax.Array]):
     (bytes: [..., W, 22]).
 
     The branches are CONCATENATED on the symbol axis ([..., W*180]) rather
-    than stacked on a new one: a [..., W, 180] layout puts W on the
-    sublane axis where it pads to 8 (2.7x wasted VPU work for W=3 — the
-    residual width-3 header cost in bench/EQ_ABLATION.json); the
-    symbol-domain ops (demod, bit unpack, syndrome matmul) instead see one
-    long lane axis. 180 symbols = 15 Golay blocks exactly, so block
+    than stacked on a new one, so the symbol-domain ops (demod, bit
+    unpack, syndrome matmul) see one long minor axis instead of a short
+    W axis. 180 symbols = 15 Golay blocks exactly, so block
     boundaries never straddle a branch seam."""
     w = len(regions)
     cat = jnp.concatenate(regions, axis=-1)  # [..., W*180]
@@ -405,11 +375,10 @@ EQ_TAPS = 8
 def _chol_solve_spd(M: jax.Array, b: jax.Array) -> jax.Array:
     """Batched SPD solve via an unrolled Cholesky, vectorized over the batch.
 
-    ``jnp.linalg.solve`` on [..., n, n] tiny systems lowers to a sequential
-    LAPACK-style LU on TPU (measured: the single hottest op in the RX path,
-    ~17 ms/block vs <1 ms for this formulation). With n static and small
-    (16), an unrolled Cholesky + two substitutions is O(n^2) elementwise
-    vector ops over the batch — a pure VPU shape XLA fuses completely.
+    ``jnp.linalg.solve`` on [..., n, n] tiny systems lowers to a
+    sequential LU per system. With n static and small (16), an unrolled
+    Cholesky + two substitutions is O(n^2) elementwise vector ops over the
+    batch, which XLA fuses completely.
     """
     n = M.shape[-1]
     mask = [
@@ -454,7 +423,7 @@ def _eq_train(
 
     liquid's flexframesync adapts an LMS equalizer sample-by-sample through
     the preamble/header (SURVEY.md section 2.2 flexframesync row); a
-    sequential LMS is a poor TPU shape. Round 1-4 solved the *direct*
+    sequential LMS is a poor fit for a batched accelerator. Round 1-4 solved the *direct*
     Wiener problem (LS of reference on received); that estimator overfits
     the FIXED training sequences' self-correlations — the preamble is one
     deterministic m-sequence and the header is near-deterministic, so the
@@ -501,8 +470,7 @@ def _eq_train(
         # KNOWN-constant reference (the preamble): the design matrix, its
         # Gram, and the regularized LS estimator are all compile-time
         # numpy — the channel estimate is ONE [L, rows] matmul per frame
-        # instead of Gram einsums + an 8-dim solve (the EQ1 train was the
-        # single hottest RX stage on hardware after the indirect rewrite)
+        # instead of Gram einsums + an 8-dim solve
         rnp = np.asarray(static_ref, dtype=np.complex64)
         D_np = np.stack(
             [rnp[n0 + c - t : n0 + c - t + rows] for t in range(L)], axis=-1
@@ -529,12 +497,7 @@ def _eq_train(
         # operand rounding perturbs the solved taps ~0.5% — phantom ISI at
         # -46 dB, below the James-Stein gate's noise null at any
         # operational SNR (same accumulate-in-f32 policy as the template
-        # correlator, docs/ARCHITECTURE.md TPU-shape rules). f32 einsums
-        # here lowered to VPU reductions (8x8 outputs are a hopeless MXU
-        # shape) and were the EQ2 hot spot: 0.58 ms/block on hardware.
-        # (An "augmented" single matmul with y as a 9th column measured
-        # SLOWER fused — +0.3 ms eq2 term — than the separate Gram/rhs
-        # einsums below; keep the split form.)
+        # correlator).
         Dr = jnp.real(D).astype(jnp.bfloat16)
         Di = jnp.imag(D).astype(jnp.bfloat16)
         mm = lambda a, b: jnp.einsum(
@@ -622,10 +585,9 @@ def _solve_hermitian(G: jax.Array, rhs: jax.Array) -> jax.Array:
 
     CG is exact in <= L steps for an L-dimensional PD system (L = 8
     here), each step one small matvec + two reductions over the tap axis
-    — a short, wide op chain XLA fuses well. The previous unrolled 16x16
-    real-embedded Cholesky was a ~700-op sequential dependency chain the
-    hardware profile showed latency-bound (eq_train(preamble) alone cost
-    2.2 ms/block). Degenerate all-zero slots (masked detections) keep
+    — a short, wide op chain XLA fuses well, where an unrolled 16x16
+    real-embedded Cholesky is a ~700-op sequential dependency chain that
+    runs latency-bound. Degenerate all-zero slots (masked detections) keep
     x = 0 via the guarded denominators."""
     L = G.shape[-1]
     x = jnp.zeros_like(rhs)
@@ -652,13 +614,9 @@ def _eq_apply(w: jax.Array, syms: jax.Array, n_out: int | None = None) -> jax.Ar
     ``n_out`` limits the output length (the caller passes a context slice
     ``syms[..., :n_out + c]`` to equalize only a prefix region cheaply).
 
-    Deliberately XLA, not Pallas (measured negative result, r3): an 8-tap
-    shifted-slice FMA fuses fine here — unlike the 30-tap matched filter —
-    and a Pallas version (in-VMEM lane rolls, candidates on sublanes) was
-    cost-neutral standalone but +4 ms in the full pipeline: the pallas_call
-    boundary forces the equalizer's input (the whole upstream symbol
-    fusion) and output to materialize, and XLA re-runs the upstream chain
-    for the pipeline's other consumers of ``syms``."""
+    Deliberately plain XLA: an 8-tap shifted-slice FMA fuses with its
+    neighbours, where a kernel boundary would force the equalizer's input
+    (the whole upstream symbol fusion) and output to materialize."""
     L = EQ_TAPS
     c = L // 2
     n = syms.shape[-1]
@@ -794,7 +752,6 @@ def sync_common(
     (lib/flex_rx_impl.cc:198) and the per-frame noise-variance estimate
     the payload soft demod consumes.
     """
-    from liquiddsp_tpu.kernels.extract import extract_windows
     from liquiddsp_tpu.phy.detector import TEMPLATE_LEN, fine_cfo
 
     peak_count = None
@@ -814,36 +771,16 @@ def sync_common(
         # at 50 ppm the static per-frame tau is off by >0.1 sample beyond
         # ~2500 symbols. Short frames keep the cheaper static path.
         track_sfo = n_syms >= SFO_AUTO_SYMS
-    backend = _recover_backend()
-    if backend.startswith("fused") and not track_sfo:
-        # fused TPU fast path: extraction stays as f32 planes; derotation +
-        # matched filter + decimation run in one Pallas pass (recover.py)
-        from liquiddsp_tpu.kernels.recover import recover_symbols_planes
-
-        wr, wi = extract_windows(x, det.start, n_samples, return_planes=True)
-        if fine:
-            pre = (wr[..., :TEMPLATE_LEN] + 1j * wi[..., :TEMPLATE_LEN]).astype(
-                jnp.complex64
-            )
-            det = dataclasses.replace(
-                det, dphi=det.dphi + fine_cfo(pre, det.dphi, det.tau)
-            )
-        syms = recover_symbols_planes(
-            wr, wi, det.dphi, det.phi, det.gamma,
-            _candidate_taps30(det, timing_bank), n_syms,
-            interpret=backend == "fused_interpret",
+    win = extract_windows(x, det.start, n_samples)
+    if fine:
+        det = dataclasses.replace(
+            det,
+            dphi=det.dphi + fine_cfo(win[..., :TEMPLATE_LEN], det.dphi, det.tau),
         )
+    if track_sfo:
+        syms = _sfo_recover(win, det, n_syms)
     else:
-        win = extract_windows(x, det.start, n_samples)
-        if fine:
-            det = dataclasses.replace(
-                det,
-                dphi=det.dphi + fine_cfo(win[..., :TEMPLATE_LEN], det.dphi, det.tau),
-            )
-        if track_sfo:
-            syms = _sfo_recover(win, det, n_syms)
-        else:
-            syms = symbols_from_windows(win, det, n_syms, timing_bank)
+        syms = symbols_from_windows(win, det, n_syms, timing_bank)
 
     h0, h1 = fs.PREAMBLE_SYMS, fs.PREAMBLE_SYMS + fs.HEADER_SYMS
     if equalize:
@@ -907,9 +844,8 @@ def sync_common(
                 anchor=anchor_pre, anchor_slope=slope_pre,
             )
         )
-        # ONE decode for all three branches (decode_header_multi): three
-        # separate calls cost ~3x one (measured ~1.15 ms each on hardware),
-        # and a stacked [..., 3, 180] layout pays 8/3 sublane padding
+        # ONE decode for all three branches (decode_header_multi) instead
+        # of three separate calls
         if "hdr1" in ablate:
             rlist = [hdr_region[..., h0:h1]]
             je, jr, jt = 0, 0, 0
@@ -991,8 +927,8 @@ def _dd_phase_track(
     accumulates over long payloads (thousands of symbols for low-rate
     configs) and breaks coherent demod. liquid's flexframesync tracks the
     carrier with a per-symbol PLL through the whole frame (SURVEY.md
-    section 2.2 AGC/NCO/symbol-sync row); a sequential PLL is a poor TPU
-    shape, so this applies the block-dense equivalent: split the payload
+    section 2.2 AGC/NCO/symbol-sync row); a sequential PLL is a poor fit
+    for a batched accelerator, so this applies the block-dense equivalent: split the payload
     into ``seg``-symbol segments and estimate each segment's residual phase
     from its own hard decisions (sum of r*conj(decision)).
 
@@ -1060,8 +996,7 @@ def _dd_phase_track(
         # across segments by continuity. Round 1-4 fit a LINEAR model
         # (offset + slope) through the segment statistics — right for a
         # residual-CFO ramp, wrong for the nonlinear phase wander of
-        # sub-frame-coherence fading (the tc0.5 scope boundary,
-        # bench/FER_SWEEP.json). The trajectory form subsumes the line:
+        # sub-frame-coherence fading (the tc0.5 scope boundary). The trajectory form subsumes the line:
         # theta_i = angle(u_i e^{-j psi})/m is fold-free mod 2pi/m per
         # segment; the branch of segment i is resolved to the value nearest
         # the unwrapped theta_{i-1} (valid while the true phase moves

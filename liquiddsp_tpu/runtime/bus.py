@@ -2,7 +2,7 @@
 
 The reference wires blocks through GR message ports carrying PMT dicts and
 typed vectors (lib/flex_tx_impl.cc:57-64, lib/flex_rx_impl.cc:61-63,
-python/cognitive_engine.py:68-70). TPU-natively, inter-stage control and PDU
+python/cognitive_engine.py:68-70). Here inter-stage control and PDU
 traffic stays on the host (plain Python, device arrays only inside PDUs);
 device<->host crossings happen at batch edges only (SURVEY.md section 2.3).
 

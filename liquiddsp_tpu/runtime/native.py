@@ -3,7 +3,7 @@
 The native layer re-provides, in C++, the runtime capabilities the reference
 delegates to the GNU Radio runtime (SURVEY.md section 2.3): SPSC stream ring
 buffers with overlap-carry reads, bounded message queues (PMT-port analog),
-a threaded rate-controlled sample source, and atomic counters. The TPU
+a threaded rate-controlled sample source, and atomic counters. The device
 compute path stays in JAX; this layer owns host-side ingestion/back-pressure
 so IO threads and the device thread are decoupled.
 

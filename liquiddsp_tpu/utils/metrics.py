@@ -13,7 +13,7 @@ lib/flex_rx_impl.h:56-57. This module provides the structured replacement:
 - ``MetricsCollector``: host-side accumulator with per-config receive
   counters (the [11,7,8] arrays the reference allocates but never uses —
   here they work) and rate reporting.
-- ``profile_trace``: context manager around jax.profiler for TPU traces.
+- ``profile_trace``: context manager around jax.profiler for device traces.
 """
 
 from __future__ import annotations

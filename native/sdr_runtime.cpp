@@ -1,11 +1,11 @@
-// Native host-side streaming runtime for the TPU flexframe PHY.
+// Native host-side streaming runtime for the JAX flexframe PHY.
 //
 // Role-equivalent to the GNU Radio runtime capabilities the reference leans
 // on (SURVEY.md section 2.3): lock-free stream ring buffers between
 // producer/consumer threads (gr buffer analog), typed message queues
 // (PMT message-port analog), a threaded sample source that ingests a
 // continuous stream into fixed-size device-ready chunks, and atomic
-// observability counters. The TPU compute path stays in JAX/XLA; this layer
+// observability counters. The device compute path stays in JAX/XLA; this layer
 // owns the host side of the streaming contract: fixed-size chunking with
 // overlap-carry reads (the "frame may straddle any chunk boundary" contract
 // of flexframesync, lib/flex_rx_impl.cc:203-215), back-pressure, and

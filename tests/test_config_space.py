@@ -117,27 +117,6 @@ class TestSampledRoundtrip:
             k for k, v in art["results"].items() if not v
         ]
 
-    def test_long_frame_artifact(self):
-        """Tier 5: bench/CONFIG_SPACE_LONG.json — the BPSK column at payload
-        256 (the longest frames in the space: up to ~17k samples, 4160-step
-        V27 trellises) decoded on REAL TPU hardware, where the kernel VMEM
-        budgets (kernels/recover.py, kernels/viterbi.py) actually bind —
-        CPU interpret mode cannot catch a Mosaic scoped-vmem overflow."""
-        import json
-        import os
-
-        path = os.path.join(
-            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-            "bench", "CONFIG_SPACE_LONG.json",
-        )
-        if not os.path.exists(path):
-            pytest.skip("bench/CONFIG_SPACE_LONG.json not generated yet")
-        art = json.load(open(path))
-        assert art["value"] == 56, art.get("failed_configs")
-        assert art["payload_len"] == 256 and art["mods"] == "0"
-        assert "TPU" in art["device"], art["device"]
-        assert all(art["results"].values())
-
     def test_full_path_loopback_sampled(self):
         """Full framesync loopback for 4 seeded random configs at 25 dB."""
         rng = np.random.default_rng(77)

@@ -73,8 +73,8 @@ class TestDetectionSweep:
     def test_refined_header_decode_dominates_raw(self):
         """Pins sync_common's claim that decision-directed carrier
         refinement never loses a header the raw decode would recover
-        (the raw-or-refined fallback was removed on this claim; ADVICE r1
-        asked for a sweep regression guarding it)."""
+        (the raw-or-refined fallback was removed on this claim; this sweep
+        guards it)."""
         from liquiddsp_tpu.phy.frame_spec import FrameSpec
         from liquiddsp_tpu.phy.framesync import sync_common
 

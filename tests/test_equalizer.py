@@ -2,7 +2,7 @@
 
 liquid's flexframesync includes an equalizer stage after symbol sync
 (SURVEY.md section 2.2 flexframesync row; driven from the reference at
-lib/flex_rx_impl.cc:213). The TPU analog is the closed-form two-stage
+lib/flex_rx_impl.cc:213). The block-dense analog is the closed-form two-stage
 LS equalizer in phy/framesync.py (_eq_train/_eq_apply). These tests pin:
 
 - bit-exact decode through 2-3 tap static multipath channels that break

@@ -1,7 +1,7 @@
 """Payload FER-vs-SNR statistical bounds (BASELINE configs 1-2 contract).
 
-Small-N CPU version of bench/fer_sweep.py (the full sweep artifact is
-bench/FER_SWEEP.json, generated on TPU). Asserts the waterfall shape: FER
+Small-N CPU version of bench/fer_sweep.py (which runs the full sweep on
+a GPU). Asserts the waterfall shape: FER
 monotone non-increasing in SNR (with slack for small N), zero at high SNR,
 and a coding gain for the FEC config at low SNR.
 """
@@ -42,7 +42,7 @@ class TestFERSweep:
 
 
 class TestTheoryAnchor:
-    """Waterfall POSITION vs the closed-form AWGN curve (VERDICT r2 item 3):
+    """Waterfall POSITION vs the closed-form AWGN curve:
     the measured uncoded FER at snr must not exceed the theory FER at
     snr - 1 dB, i.e. total implementation loss (detection, CFO/timing
     estimation, carrier tracking, EQ coefficient noise) under 1 dB. A
@@ -126,7 +126,7 @@ class TestTheoryAnchor:
 
 
 class TestCodedAnchors:
-    """Coded-row theory anchors (VERDICT r4 item 9)."""
+    """Coded-row theory anchors."""
 
     def test_unpunctured_spectrum_matches_published(self):
         from bench.fer_sweep import _V27_AD, conv_event_spectrum

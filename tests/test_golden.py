@@ -1,7 +1,7 @@
 """Bit-exactness of JAX ops vs the native C++ golden oracle.
 
 This is the liquid-dsp-replacement contract of SURVEY.md section 7.1: the
-batched TPU ops and the independent scalar C++ library implement the same
+batched JAX ops and the independent scalar C++ library implement the same
 spec; these tests pin them together bit-for-bit.
 """
 

@@ -18,9 +18,9 @@ from pathlib import Path
 
 sys.path.insert(0, ".")
 
-import jax
+from liquiddsp_tpu.utils.init import init_device  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
+init_device(cpu=True)
 
 ROOT = Path(__file__).resolve().parent.parent
 OUT = ROOT / "docs" / "api"
